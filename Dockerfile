@@ -1,16 +1,17 @@
-# acoustid_index_tpu — TPU-native audio-fingerprint search engine.
+# acoustid_index — GPU audio-fingerprint search engine.
 #
 # Operational contract mirrors the reference image
 # (/root/reference/Dockerfile: serve on 8080, data in a volume, non-root
 # user, wget for healthchecks), adapted to this stack: a Python/JAX server
 # whose native C++ codec + search front build inside the image (g++ via
-# make -C acoustid_index_tpu/native; pure-Python fallbacks exist, so the
+# make -C acoustid_index/native; pure-Python fallbacks exist, so the
 # build stage failing soft would still leave a working server).
 #
-# On a TPU VM, run with the host TPU runtime exposed to the container
-# (--privileged --net=host on GCE TPU VMs, or the TPU device plugin on GKE).
-# On a non-TPU host the server comes up on the CPU backend
-# (AITPU_JAX_PLATFORMS=cpu) — useful for functional smoke tests only.
+# Run with the host's NVIDIA driver exposed to the container (the NVIDIA
+# container toolkit: --gpus all). One server process per card: a JAX
+# process reserves three quarters of its card's memory at start. Without a
+# GPU the server comes up on the CPU backend (AITPU_JAX_PLATFORMS=cpu) —
+# useful for functional smoke tests only.
 
 FROM python:3.12-slim
 
@@ -18,27 +19,27 @@ RUN apt-get update \
     && apt-get install -y --no-install-recommends g++ make wget \
     && rm -rf /var/lib/apt/lists/*
 
-# jax[tpu] pulls libtpu from the Google releases index; pin in lockstep with
-# the version this tree is developed against.
-RUN pip install --no-cache-dir \
-    "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
-    numpy msgpack
+# The CUDA 12 build of JAX (jaxlib plus its CUDA plugin and the NVIDIA
+# libraries from PyPI), pinned in lockstep with the version this tree is
+# developed against. numpy is the only other runtime dependency.
+RUN pip install --no-cache-dir "jax[cuda12]==0.9.0" numpy
 
 RUN useradd -m -s /bin/bash -u 6081 acoustid
 
-COPY acoustid_index_tpu /opt/aitpu/acoustid_index_tpu
+COPY acoustid_index /opt/aitpu/acoustid_index
 WORKDIR /opt/aitpu
 
 # Build the native modules at image-build time (first-use auto-build would
 # also work, but /opt/aitpu is read-only at runtime for user 6081).
-RUN make -C acoustid_index_tpu/native && chown -R root:root /opt/aitpu
+RUN make -C acoustid_index/native && chown -R root:root /opt/aitpu
 
 RUN mkdir -p /var/lib/aitpu && chown acoustid /var/lib/aitpu
 VOLUME ["/var/lib/aitpu"]
 
 # Persistent XLA compile cache: keep it in the data volume so server
-# restarts reuse compiled search programs (cold compiles cost minutes).
-ENV AITPU_XLA_CACHE_DIR=/var/lib/aitpu/.xla-cache
+# restarts reuse compiled search programs (JAX reads this variable; the
+# server uses it verbatim).
+ENV JAX_COMPILATION_CACHE_DIR=/var/lib/aitpu/.jax-cache
 ENV PYTHONUNBUFFERED=1
 
 USER acoustid
@@ -47,5 +48,5 @@ EXPOSE 8080
 HEALTHCHECK --interval=30s --timeout=5s --start-period=120s \
     CMD wget -q -O /dev/null http://127.0.0.1:8080/_health || exit 1
 
-CMD ["python", "-m", "acoustid_index_tpu.main", \
+CMD ["python", "-m", "acoustid_index.main", \
      "--dir", "/var/lib/aitpu", "--host", "0.0.0.0", "--port", "8080"]

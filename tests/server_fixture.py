@@ -61,7 +61,7 @@ class Server:
             [
                 sys.executable,
                 "-m",
-                "acoustid_index_tpu.main",
+                "acoustid_index.main",
                 "--dir",
                 self.data_dir,
                 "--port",

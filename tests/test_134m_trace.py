@@ -10,9 +10,9 @@ scale with no data, so this stays cheap.
 import jax
 import jax.numpy as jnp
 
-from acoustid_index_tpu.engine.searcher import _params_for
-from acoustid_index_tpu.ops.layout import BLOCK
-from acoustid_index_tpu.ops.search_kernel import _search_batch_impl
+from acoustid_index.engine.searcher import _params_for
+from acoustid_index.ops.layout import BLOCK
+from acoustid_index.ops.search_kernel import _search_batch_impl
 
 
 def test_134m_interleaved_traces():

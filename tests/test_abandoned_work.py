@@ -15,11 +15,11 @@ import time
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.engine.errors import SearchTimeout
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SearchOptions, SegmentInfo
-from acoustid_index_tpu.engine.searcher import BatchingSearcher, _PendingSearch
-from acoustid_index_tpu.engine.segments import (
+from acoustid_index.engine.errors import SearchTimeout
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SearchOptions, SegmentInfo
+from acoustid_index.engine.searcher import BatchingSearcher, _PendingSearch
+from acoustid_index.engine.segments import (
     FILE_SLOTS,
     MEMORY_SLOTS,
     Snapshot,

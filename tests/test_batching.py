@@ -5,10 +5,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import BatchingSearcher, Searcher
-from acoustid_index_tpu.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import BatchingSearcher, Searcher
+from acoustid_index.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
 
 
 def test_batching_matches_plain_under_concurrency():
@@ -59,8 +59,8 @@ def test_batching_solo_request():
 
 
 def test_warm_precompiles_without_error(tmp_path):
-    from acoustid_index_tpu.engine.index import Index
-    from acoustid_index_tpu.engine.model import Insert, SearchOptions
+    from acoustid_index.engine.index import Index
+    from acoustid_index.engine.model import Insert, SearchOptions
 
     idx = Index.open(str(tmp_path / "idx"), checkpoint_age=None)
     try:

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from acoustid_index_tpu.ops.pallas_lookup import BLOCK, tier_ranges_blocked
-from acoustid_index_tpu.ops.binsearch import lower_bound, upper_bound
+from acoustid_index.ops.block_lookup import BLOCK, tier_ranges_blocked
+from acoustid_index.ops.binsearch import lower_bound, upper_bound
 
 
 def make_tier(hashes: np.ndarray):

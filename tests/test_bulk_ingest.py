@@ -11,8 +11,8 @@ per-document Python objects are the measured ingest bottleneck here.
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import (
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import (
     BulkInsert,
     Delete,
     Insert,
@@ -104,8 +104,8 @@ def test_bulk_validation():
 
 
 def test_index_bulk_insert_lazy_views_and_durability(tmp_path):
-    from acoustid_index_tpu.engine.index import Index
-    from acoustid_index_tpu.engine.segments import PENDING_VIEW
+    from acoustid_index.engine.index import Index
+    from acoustid_index.engine.segments import PENDING_VIEW
 
     idx = Index.open(str(tmp_path), checkpoint_age=None)
     try:
@@ -145,7 +145,7 @@ def test_index_bulk_insert_lazy_views_and_durability(tmp_path):
 
 def test_index_bulk_insert_wal_replay(tmp_path):
     # Kill before any checkpoint: the bulk frame must replay from the WAL.
-    from acoustid_index_tpu.engine.index import Index
+    from acoustid_index.engine.index import Index
 
     idx = Index.open(str(tmp_path), checkpoint_age=None)
     ids = np.arange(1, 101, dtype=np.uint32)
@@ -164,8 +164,8 @@ def test_index_bulk_insert_wal_replay(tmp_path):
 
 
 def test_bulk_insert_rejects_mid_batch_and_versions(tmp_path):
-    from acoustid_index_tpu.engine.errors import VersionMismatch
-    from acoustid_index_tpu.engine.index import Index
+    from acoustid_index.engine.errors import VersionMismatch
+    from acoustid_index.engine.index import Index
 
     idx = Index.open(str(tmp_path), checkpoint_age=None)
     try:

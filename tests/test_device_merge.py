@@ -4,10 +4,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from acoustid_index_tpu.engine.memseg import build_segment, merge_segments
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo
-from acoustid_index_tpu.engine.segments import Snapshot
-from acoustid_index_tpu.ops.build import merge_postings_live, sort_postings
+from acoustid_index.engine.memseg import build_segment, merge_segments
+from acoustid_index.engine.model import Delete, Insert, SegmentInfo
+from acoustid_index.engine.segments import Snapshot
+from acoustid_index.ops.build import merge_postings_live, sort_postings
 
 
 def pack_contiguous(segments, cap, dcap):
@@ -88,7 +88,7 @@ def test_engine_device_merge_matches_host_bit_for_bit():
     """merge_segments_device == merge_segments including OUTSIDE-run
     supersession: docs rewritten/deleted in segments newer than the merged
     run must be dropped by both paths."""
-    from acoustid_index_tpu.engine.device_merge import merge_segments_device
+    from acoustid_index.engine.device_merge import merge_segments_device
 
     rng = np.random.default_rng(3)
     segs = []
@@ -115,8 +115,8 @@ def test_engine_device_merge_matches_host_bit_for_bit():
 def test_checkpoint_runs_device_merge_and_matches(tmp_path, monkeypatch):
     """An Index checkpoint above the device threshold runs the device merge
     and produces the same file segment as the host path."""
-    from acoustid_index_tpu.engine import device_merge
-    from acoustid_index_tpu.engine.index import Index
+    from acoustid_index.engine import device_merge
+    from acoustid_index.engine.index import Index
 
     calls = {"device": 0}
     orig = device_merge.merge_segments_device

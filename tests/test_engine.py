@@ -8,12 +8,12 @@ import struct
 
 import pytest
 
-from acoustid_index_tpu.engine import filefmt, manifest
-from acoustid_index_tpu.engine.errors import VersionMismatch, VersionRequired, VersionWentBackwards
-from acoustid_index_tpu.engine.index import Index
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo, SetMetadata, SearchOptions, Transaction
-from acoustid_index_tpu.engine.oplog import Oplog
+from acoustid_index.engine import filefmt, manifest
+from acoustid_index.engine.errors import VersionMismatch, VersionRequired, VersionWentBackwards
+from acoustid_index.engine.index import Index
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Delete, Insert, SegmentInfo, SetMetadata, SearchOptions, Transaction
+from acoustid_index.engine.oplog import Oplog
 
 
 def collect(dirpath):
@@ -333,7 +333,7 @@ def test_slot_pressure_merges_cheapest_window(tmp_path, monkeypatch):
     fallback merge picks the cheapest adjacent window — NOT the head of the
     tier, which holds the biggest segments (rewriting those per event is the
     O(N^2) cascade the tiered policy exists to avoid)."""
-    from acoustid_index_tpu.engine import index as index_mod
+    from acoustid_index.engine import index as index_mod
 
     idx = Index.open(str(tmp_path / "idx"), checkpoint_age=None)
     try:

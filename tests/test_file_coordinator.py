@@ -11,9 +11,9 @@ import time
 
 import pytest
 
-from acoustid_index_tpu.cluster.file_coordinator import FileCoordinator
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.model import Delete, Insert, SetMetadata
+from acoustid_index.cluster.file_coordinator import FileCoordinator
+from acoustid_index.engine import errors
+from acoustid_index.engine.model import Delete, Insert, SetMetadata
 
 
 def mk(path, **kw):

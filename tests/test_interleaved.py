@@ -1,9 +1,9 @@
 """Oracle parity through the INTERLEAVED block layout (ops/layout.py).
 
 Large tiers pack hashes+docids interleaved at block granularity so the
-landing kernel's operand carries both; at CPU test sizes the layout only
-engages when the resident budget is forced down, so these tests pin
-AITPU_RESIDENT_MAX_BYTES below the table size and check:
+landing scan finds both in one place; at CPU test sizes the layout only
+engages when the resident cut is forced down, so these tests pin
+layout.RESIDENT_MAX_BYTES below the table size and check:
   * pack_tier emits "inter" (and drops the plain pair),
   * search results stay bit-identical to the literal oracle, including
     multi-segment ordinals, supersession, tombstones, and hot-hash runs.
@@ -14,25 +14,26 @@ import sys
 
 import numpy as np
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import (
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Delete, Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import (
     FILE_SLOTS,
     MEMORY_SLOTS,
     Snapshot,
     pack_tier,
 )
-from acoustid_index_tpu.ops.layout import BLOCK, postings_cap
+from acoustid_index.ops import layout
+from acoustid_index.ops.layout import BLOCK, postings_cap
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from oracle import OracleSegment, oracle_search
 
 
 def _force_interleave(monkeypatch):
-    # 96k-posting test tables are far below the 6MB default residency
-    # budget; force the blocked+interleaved path like a production table.
-    monkeypatch.setenv("AITPU_RESIDENT_MAX_BYTES", str(64 * 1024))
+    # 96k-posting test tables are far below the 6MB default resident cut;
+    # force the blocked+interleaved path like a production table.
+    monkeypatch.setattr(layout, "RESIDENT_MAX_BYTES", 64 * 1024)
 
 
 def test_pack_emits_interleaved(monkeypatch):
@@ -62,8 +63,8 @@ def test_direct_candidates_unit(monkeypatch):
     overflows the per-hash lane budget into the fallback gather."""
     _force_interleave(monkeypatch)
     import jax.numpy as jnp
-    from acoustid_index_tpu.ops.pallas_lookup import tier_ranges_blocked
-    from acoustid_index_tpu.ops.search_kernel import F_DIRECT, _direct_candidates, SENTINEL
+    from acoustid_index.ops.block_lookup import tier_ranges_blocked
+    from acoustid_index.ops.search_kernel import F_DIRECT, _direct_candidates, SENTINEL
 
     rng = np.random.default_rng(11)
     n_docs = 3000

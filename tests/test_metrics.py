@@ -11,7 +11,7 @@ past _count.)
 
 import re
 
-from acoustid_index_tpu.server import metrics
+from acoustid_index.server import metrics
 
 
 def setup_function(_):
@@ -105,11 +105,11 @@ def test_search_stats_carry_blocks_per_hash():
     # blocks >= 2 while a within-block run reports 1.
     import numpy as np
 
-    from acoustid_index_tpu.engine.memseg import build_segment
-    from acoustid_index_tpu.engine.model import Insert, SearchOptions, SegmentInfo
-    from acoustid_index_tpu.engine.searcher import Searcher
-    from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier
-    from acoustid_index_tpu.ops.pallas_lookup import BLOCK
+    from acoustid_index.engine.memseg import build_segment
+    from acoustid_index.engine.model import Insert, SearchOptions, SegmentInfo
+    from acoustid_index.engine.searcher import Searcher
+    from acoustid_index.engine.segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier
+    from acoustid_index.ops.block_lookup import BLOCK
 
     # hash 5's run fills positions [0, 600); the hot hash's 600-posting run
     # then straddles the first BLOCK boundary -> 2 blocks scanned.

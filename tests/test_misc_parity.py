@@ -72,8 +72,8 @@ def test_snapshot_wire_format_parses_externally(tmp_path):
 def test_reader_snapshot_stable_across_writes(tmp_path):
     """A search that grabbed a snapshot must not see concurrent writes
     (the reference's 'reader snapshot stable across writes')."""
-    from acoustid_index_tpu.engine.index import Index
-    from acoustid_index_tpu.engine.model import Insert, SearchOptions
+    from acoustid_index.engine.index import Index
+    from acoustid_index.engine.model import Insert, SearchOptions
 
     idx = Index.open(str(tmp_path / "idx"), checkpoint_age=None)
     try:
@@ -112,9 +112,9 @@ def test_reader_snapshot_stable_across_writes(tmp_path):
 
 
 def test_memory_tier_stays_bounded_under_write_load(tmp_path):
-    from acoustid_index_tpu.engine.index import Index
-    from acoustid_index_tpu.engine.model import Insert
-    from acoustid_index_tpu.engine.segments import MEMORY_SLOTS
+    from acoustid_index.engine.index import Index
+    from acoustid_index.engine.model import Insert
+    from acoustid_index.engine.segments import MEMORY_SLOTS
 
     idx = Index.open(str(tmp_path / "idx"), checkpoint_age=None)
     try:
@@ -131,11 +131,11 @@ def test_shared_load_semaphore_bounds_total_loads(tmp_path, monkeypatch):
     product (the reference's single semaphore, MultiIndex.zig:201-223)."""
     import os
 
-    from acoustid_index_tpu.engine import filefmt
-    from acoustid_index_tpu.engine.index import Index
-    from acoustid_index_tpu.engine.model import Insert
-    from acoustid_index_tpu.multi import redirect as index_redirect
-    from acoustid_index_tpu.multi.multi_index import MultiIndex
+    from acoustid_index.engine import filefmt
+    from acoustid_index.engine.index import Index
+    from acoustid_index.engine.model import Insert
+    from acoustid_index.multi import redirect as index_redirect
+    from acoustid_index.multi.multi_index import MultiIndex
 
     # Three lineages, four file segments each (checkpoint per batch; no
     # maintenance thread, so nothing merges them away before the reopen).

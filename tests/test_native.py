@@ -4,7 +4,7 @@ and on-disk size wins."""
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.utils import native
+from acoustid_index.utils import native
 
 
 def make_postings(n, seed=0):
@@ -85,9 +85,9 @@ def test_scan_frames_matches_python_scanner(tmp_path):
 
 
 def test_segment_file_dv1_size_win(tmp_path):
-    from acoustid_index_tpu.engine import filefmt
-    from acoustid_index_tpu.engine.memseg import build_segment
-    from acoustid_index_tpu.engine.model import Insert, SegmentInfo
+    from acoustid_index.engine import filefmt
+    from acoustid_index.engine.memseg import build_segment
+    from acoustid_index.engine.model import Insert, SegmentInfo
 
     rng = np.random.default_rng(5)
     changes = [

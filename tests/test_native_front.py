@@ -18,11 +18,11 @@ import numpy as np
 import pytest
 import requests
 
-from acoustid_index_tpu.multi.multi_index import MultiIndex, SearchRequestParams
-from acoustid_index_tpu.server.app import App
-from acoustid_index_tpu.server.http import HttpServer
-from acoustid_index_tpu.server.native_front import NativeFront
-from acoustid_index_tpu.utils.native import front_lib
+from acoustid_index.multi.multi_index import MultiIndex, SearchRequestParams
+from acoustid_index.server.app import App
+from acoustid_index.server.http import HttpServer
+from acoustid_index.server.native_front import NativeFront
+from acoustid_index.utils.native import front_lib
 
 MSGPACK_CT = "application/vnd.msgpack"
 
@@ -35,7 +35,7 @@ def stack(tmp_path_factory):
     mi.create_index("main")
     rng = np.random.default_rng(5)
     hashes = rng.integers(1, 2**32, (300, 20), dtype=np.uint32)
-    from acoustid_index_tpu.engine.model import Insert
+    from acoustid_index.engine.model import Insert
 
     mi.update(
         "main",

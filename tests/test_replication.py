@@ -8,13 +8,13 @@ import time
 
 import pytest
 
-from acoustid_index_tpu.cluster.coordinator import MemoryCoordinator
-from acoustid_index_tpu.cluster.replicator import Replicator
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.model import Delete, Insert
-from acoustid_index_tpu.multi.multi_index import MultiIndex, SearchRequestParams
-from acoustid_index_tpu.server.app import App
-from acoustid_index_tpu.server.http import HttpServer
+from acoustid_index.cluster.coordinator import MemoryCoordinator
+from acoustid_index.cluster.replicator import Replicator
+from acoustid_index.engine import errors
+from acoustid_index.engine.model import Delete, Insert
+from acoustid_index.multi.multi_index import MultiIndex, SearchRequestParams
+from acoustid_index.server.app import App
+from acoustid_index.server.http import HttpServer
 
 
 class Node:

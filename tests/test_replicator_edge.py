@@ -8,11 +8,11 @@ import time
 
 import pytest
 
-from acoustid_index_tpu.cluster.coordinator import BootstrapStream, MemoryCoordinator
-from acoustid_index_tpu.cluster.replicator import Replicator
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.model import Insert
-from acoustid_index_tpu.multi.multi_index import MultiIndex, SearchRequestParams
+from acoustid_index.cluster.coordinator import BootstrapStream, MemoryCoordinator
+from acoustid_index.cluster.replicator import Replicator
+from acoustid_index.engine import errors
+from acoustid_index.engine.model import Insert
+from acoustid_index.multi.multi_index import MultiIndex, SearchRequestParams
 
 from test_replication import Node, search_ids
 
@@ -133,7 +133,7 @@ def test_wedged_peer_probe_is_bounded(monkeypatch):
     wedge donor discovery: the probe times out and the peer is skipped."""
     import socket
 
-    from acoustid_index_tpu.cluster import peers as peers_mod
+    from acoustid_index.cluster import peers as peers_mod
 
     wedged = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     wedged.bind(("127.0.0.1", 0))
@@ -189,12 +189,12 @@ def test_dripping_snapshot_donor_trips_backstop(tmp_path):
     try:
         mi.create_index("idx")
 
-        from acoustid_index_tpu.cluster.peers import Donor
+        from acoustid_index.cluster.peers import Donor
 
         donor = Donor(base_url=f"http://127.0.0.1:{port}", generation=1, version=5, file_version=5)
         consumer = repl._consumers.get("idx")
         if consumer is None:
-            from acoustid_index_tpu.cluster.replicator import _Consumer
+            from acoustid_index.cluster.replicator import _Consumer
 
             consumer = _Consumer(name="idx", generation=1)
         t0 = time.monotonic()
@@ -213,7 +213,7 @@ def test_dripping_snapshot_donor_trips_backstop(tmp_path):
 def test_dripping_corpus_stream_trips_backstop():
     """Same backstop over the corpus stream: a feed yielding batches forever
     must be cut at the absolute deadline, not trusted to finish."""
-    from acoustid_index_tpu.cluster.replicator import _DeadlineStream
+    from acoustid_index.cluster.replicator import _DeadlineStream
 
     class ForeverStream(BootstrapStream):
         position = 10

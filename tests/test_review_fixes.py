@@ -9,9 +9,9 @@ import time
 import pytest
 import requests
 
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.index import Index
-from acoustid_index_tpu.engine.model import Insert, SearchOptions
+from acoustid_index.engine import errors
+from acoustid_index.engine.index import Index
+from acoustid_index.engine.model import Insert, SearchOptions
 
 from server_fixture import Server
 
@@ -112,8 +112,8 @@ def test_deadline_expires_while_batched(tmp_path):
     SearchTimeout, not an indefinite hang."""
     import threading
 
-    from acoustid_index_tpu.engine.model import SearchOptions as SO
-    from acoustid_index_tpu.engine.searcher import BatchingSearcher
+    from acoustid_index.engine.model import SearchOptions as SO
+    from acoustid_index.engine.searcher import BatchingSearcher
 
     idx = Index.open(str(tmp_path / "idx"), checkpoint_age=None)
     try:
@@ -164,7 +164,7 @@ def test_bad_content_length(tmp_path):
 def test_model_ingest_rejects_doc_zero():
     import numpy as np
 
-    from acoustid_index_tpu.models.fingerprint_search import FingerprintSearchModel
+    from acoustid_index.models.fingerprint_search import FingerprintSearchModel
 
     m = FingerprintSearchModel()
     with pytest.raises(ValueError):
@@ -174,8 +174,8 @@ def test_model_ingest_rejects_doc_zero():
 def test_coordinator_read_is_sliced_not_scanned():
     """read/read_meta are O(batch) via dense-seq slicing; correctness across
     retention truncation, and a 100k-op lineage stays fast."""
-    from acoustid_index_tpu.cluster.coordinator import MemoryCoordinator
-    from acoustid_index_tpu.engine.model import Insert
+    from acoustid_index.cluster.coordinator import MemoryCoordinator
+    from acoustid_index.engine.model import Insert
 
     c = MemoryCoordinator()
     gen = c.create_index("idx")
@@ -211,10 +211,10 @@ def test_pick_batch_size_starts_pipeline_for_external_callers():
     submit()ed, so the precompile queue may not exist yet; the warm-but-not-
     exact path must start the pipeline rather than raise AttributeError on
     a None _precompile_q (and permanently poison _precompiling)."""
-    from acoustid_index_tpu.engine.memseg import build_segment
-    from acoustid_index_tpu.engine.model import SegmentInfo
-    from acoustid_index_tpu.engine.searcher import BatchingSearcher, _params_for
-    from acoustid_index_tpu.engine.segments import (
+    from acoustid_index.engine.memseg import build_segment
+    from acoustid_index.engine.model import SegmentInfo
+    from acoustid_index.engine.searcher import BatchingSearcher, _params_for
+    from acoustid_index.engine.segments import (
         FILE_SLOTS,
         MEMORY_SLOTS,
         Snapshot,
@@ -245,10 +245,10 @@ def test_sticky_shapes_are_per_index():
     index's packed views (GBs of sentinel padding per small index)."""
     import numpy as np
 
-    from acoustid_index_tpu.engine.memseg import build_segment
-    from acoustid_index_tpu.engine.model import SegmentInfo
-    from acoustid_index_tpu.engine.searcher import Searcher
-    from acoustid_index_tpu.ops.layout import postings_cap
+    from acoustid_index.engine.memseg import build_segment
+    from acoustid_index.engine.model import SegmentInfo
+    from acoustid_index.engine.searcher import Searcher
+    from acoustid_index.ops.layout import postings_cap
 
     rng = np.random.default_rng(3)
     big = build_segment(

@@ -1,30 +1,30 @@
-"""Oracle parity THROUGH the Pallas blocked-lookup path: the packed table
-must exceed the 64-block gating threshold so _batch_ranges takes the
-two-level route (interpret mode on the CPU test backend) — the small-table
-kernel tests all fall back to the XLA range phase and would never catch a
-blocked-lookup regression."""
+"""Oracle parity THROUGH the blocked-lookup path: the packed table must
+exceed the 64-block interleave threshold so _batch_ranges takes the
+two-level route over the interleaved layout (the plain landing scan on the
+CPU test backend) — the small-table kernel tests take the dense range
+phase and would never catch a blocked-lookup regression."""
 
 import numpy as np
 
 import jax.numpy as jnp
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import (
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import (
     FILE_SLOTS,
     MEMORY_SLOTS,
     Snapshot,
     pack_tier,
 )
-from acoustid_index_tpu.ops.pallas_lookup import BLOCK
-from acoustid_index_tpu.ops.layout import postings_cap
+from acoustid_index.ops.layout import BLOCK
+from acoustid_index.ops.layout import postings_cap
 
 
 def test_pallas_path_matches_oracle():
     rng = np.random.default_rng(9)
     n_docs = 4000
-    hashes_per_doc = 24  # 96k postings > 64*BLOCK -> pallas path engages
+    hashes_per_doc = 24  # 96k postings > 64*BLOCK -> blocked path engages
     doc_hashes = rng.integers(0, 2**32, (n_docs, hashes_per_doc), dtype=np.uint32)
     seg = build_segment(
         [Insert(id=i + 1, hashes=doc_hashes[i].tolist()) for i in range(n_docs)],
@@ -36,7 +36,7 @@ def test_pallas_path_matches_oracle():
         file_view=pack_tier([seg], FILE_SLOTS),
         mem_view=pack_tier([], MEMORY_SLOTS),
     )
-    assert postings_cap(snap.file_view) >= 64 * BLOCK  # pallas path gating
+    assert postings_cap(snap.file_view) >= 64 * BLOCK  # blocked path gating
 
     searcher = Searcher()
     h_sorted = np.asarray(seg.hashes)
@@ -87,7 +87,7 @@ def test_pallas_path_randomized_multisegment_with_supersession():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from oracle import OracleSegment, oracle_search
 
-    from acoustid_index_tpu.engine.model import Delete
+    from acoustid_index.engine.model import Delete
 
     rng = np.random.default_rng(31)
     n_docs = 3500
@@ -122,7 +122,7 @@ def test_pallas_path_randomized_multisegment_with_supersession():
         file_view=pack_tier([f1, f2], FILE_SLOTS),
         mem_view=pack_tier([m1], MEMORY_SLOTS),
     )
-    assert postings_cap(snap.file_view) >= 64 * BLOCK  # pallas gating
+    assert postings_cap(snap.file_view) >= 64 * BLOCK  # blocked path gating
 
     oracle_segs = [
         OracleSegment(

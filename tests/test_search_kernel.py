@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.engine.memseg import Segment, build_segment
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
+from acoustid_index.engine.memseg import Segment, build_segment
+from acoustid_index.engine.model import Delete, Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
 
 from oracle import OracleSegment, oracle_search
 
@@ -223,12 +223,12 @@ def test_hot_hash_degenerate_skew():
     hash (FileSegment.zig:25-26,171-174).  Our documented bound differs in
     anchor but not in shape: the range phase scans a 2-chunk window at the
     run's upper landing chunk, capped at K postings per (hash, segment)
-    (ops/pallas_lookup.py tier_ranges_resident, searcher._params_for), so a
+    (ops/block_lookup.py tier_ranges_blocked, searcher._params_for), so a
     degenerate hash yields a CONTIGUOUS docid-ascending slice of its run,
     `truncated` is set, max_per_hash reports the cap (feeding the load-skew
     histogram, multi/multi_index.py:181), and every other hash in the query
     still scores exactly."""
-    from acoustid_index_tpu.engine.searcher import _params_for
+    from acoustid_index.engine.searcher import _params_for
 
     n_hot = 100_000
     hot = 4_000_000_000  # larger than the decoy hashes: its run sorts last

@@ -11,14 +11,14 @@ import time
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SearchOptions, SegmentInfo
-from acoustid_index_tpu.engine.searcher import (
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SearchOptions, SegmentInfo
+from acoustid_index.engine.searcher import (
     BATCH_SIZES,
     BatchingSearcher,
     _params_for,
 )
-from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier
+from acoustid_index.engine.segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier
 
 
 @pytest.fixture()
@@ -213,7 +213,7 @@ def test_warm_async_precompiles_serving_bucket(snap):
 def test_index_write_triggers_background_warm(tmp_path):
     """An Index write installs a snapshot with fresh memory-tier shapes;
     the engine must hand them to the background precompiler."""
-    from acoustid_index_tpu.engine.index import Index
+    from acoustid_index.engine.index import Index
 
     s = RecordingSearcher()
     idx = Index.open(str(tmp_path), searcher=s, sync=False)

@@ -1,7 +1,7 @@
 
 
 def test_bucket_half_octave_steps():
-    from acoustid_index_tpu.engine.segments import _bucket
+    from acoustid_index.engine.segments import _bucket
 
     assert _bucket(1, 1024) == 1024
     assert _bucket(1024, 1024) == 1024
@@ -20,8 +20,8 @@ def _seg(commit_id, docs):
     """docs: list of (id, hashes, alive)."""
     import numpy as np
 
-    from acoustid_index_tpu.engine.memseg import build_segment
-    from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo
+    from acoustid_index.engine.memseg import build_segment
+    from acoustid_index.engine.model import Delete, Insert, SegmentInfo
 
     changes = []
     for i, hs, alive in docs:
@@ -37,7 +37,7 @@ def test_pack_tier_filters_within_tier_supersession():
     no ordinal column exists."""
     import numpy as np
 
-    from acoustid_index_tpu.engine.segments import FILE_SLOTS, pack_tier
+    from acoustid_index.engine.segments import FILE_SLOTS, pack_tier
 
     s1 = _seg(1, [(5, [10, 11], True), (6, [20], True), (7, [30, 31], True)])
     s2 = _seg(2, [(5, [12], True), (8, [40], True)])  # reinsert 5
@@ -64,7 +64,7 @@ def test_pack_tier_filter_skips_disjoint_segments():
     append-only ingest shape) and keep every posting."""
     import numpy as np
 
-    from acoustid_index_tpu.engine.segments import FILE_SLOTS, pack_tier
+    from acoustid_index.engine.segments import FILE_SLOTS, pack_tier
 
     s1 = _seg(1, [(1, [10], True), (2, [11], True)])
     s2 = _seg(2, [(10, [12], True)])
@@ -75,9 +75,9 @@ def test_pack_tier_filter_skips_disjoint_segments():
 def test_search_across_filtered_tiers():
     """End-to-end semantics over a filtered pack: memory-tier reinsert and
     tombstone supersede file-tier docs via the membership test."""
-    from acoustid_index_tpu.engine.model import SearchOptions
-    from acoustid_index_tpu.engine.searcher import Searcher
-    from acoustid_index_tpu.engine.segments import (
+    from acoustid_index.engine.model import SearchOptions
+    from acoustid_index.engine.searcher import Searcher
+    from acoustid_index.engine.segments import (
         FILE_SLOTS,
         MEMORY_SLOTS,
         Snapshot,

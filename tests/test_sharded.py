@@ -6,12 +6,12 @@ import pytest
 
 import jax
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
-from acoustid_index_tpu.ops.search_kernel import SearchParams
-from acoustid_index_tpu.parallel.sharded import (
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Delete, Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
+from acoustid_index.ops.search_kernel import SearchParams
+from acoustid_index.parallel.sharded import (
     build_sharded_view,
     make_mesh,
     sharded_ingest_step,
@@ -99,7 +99,7 @@ def test_sharded_ingest_sorts_per_shard():
     h = rng.integers(0, 2**32, 5000, dtype=np.uint32)
     i = rng.integers(1, 1000, 5000, dtype=np.uint32)
     sh, si = jax.device_get(sharded_ingest_step(mesh, h, i))
-    from acoustid_index_tpu.parallel.sharded import hash_bounds
+    from acoustid_index.parallel.sharded import hash_bounds
 
     bounds = hash_bounds(8)
     total = 0

@@ -1,17 +1,18 @@
-"""Sharded search through the Pallas blocked-lookup path: per-shard tables
-above the gating threshold so shard_map runs the two-level lookup (interpret
-mode on CPU), compared against the single-device searcher."""
+"""Sharded search through the blocked-lookup path: per-shard tables above
+the gating threshold so shard_map runs the two-level lookup (the plain
+landing scan on the CPU), compared against the single-device searcher."""
 
 import numpy as np
 import pytest
 
 import jax
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SegmentInfo, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
-from acoustid_index_tpu.ops.pallas_lookup import BLOCK
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SegmentInfo, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import Snapshot, pack_tier, FILE_SLOTS, MEMORY_SLOTS
+from acoustid_index.ops import layout
+from acoustid_index.ops.layout import BLOCK
 
 
 def postings_cap_sharded(tier, n_shards=8):
@@ -21,8 +22,8 @@ def postings_cap_sharded(tier, n_shards=8):
         return tier["inter"].shape[0] // (2 * n_shards)
     return tier["hashes"].shape[0] // n_shards
 
-from acoustid_index_tpu.ops.search_kernel import SearchParams
-from acoustid_index_tpu.parallel.sharded import build_sharded_view, make_mesh, sharded_search
+from acoustid_index.ops.search_kernel import SearchParams
+from acoustid_index.parallel.sharded import build_sharded_view, make_mesh, sharded_search
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -38,7 +39,7 @@ def test_sharded_blocked_path_matches_single_device():
     mesh = make_mesh(8)
     snap = Snapshot(file=(seg,), memory=())
     view = build_sharded_view(snap, mesh)
-    assert postings_cap_sharded(view.file_tier) >= 64 * BLOCK  # pallas path gating
+    assert postings_cap_sharded(view.file_tier) >= 64 * BLOCK  # blocked path gating
 
     single = Snapshot(
         file=(seg,),
@@ -75,7 +76,7 @@ def test_sharded_direct_path_supersession_matches_single_device(monkeypatch):
     shards, so cross-shard supersession (docid-range mention pmax) is load
     bearing.  Forced interleaved like test_interleaved.py so the emit path
     engages at CPU test sizes."""
-    monkeypatch.setenv("AITPU_RESIDENT_MAX_BYTES", str(64 * 1024))
+    monkeypatch.setattr(layout, "RESIDENT_MAX_BYTES", 64 * 1024)
     rng = np.random.default_rng(31)
     n_docs = 25_000
     doc_hashes = rng.integers(0, 2**32, (n_docs, 24), dtype=np.uint32)
@@ -84,7 +85,7 @@ def test_sharded_direct_path_supersession_matches_single_device(monkeypatch):
         SegmentInfo(commit_id=1),
     )
     # Memory tier: re-insert 40 docs with fresh hashes, tombstone 40 others.
-    from acoustid_index_tpu.engine.model import Delete
+    from acoustid_index.engine.model import Delete
 
     upd = rng.choice(np.arange(1, n_docs + 1), 80, replace=False)
     new_hashes = rng.integers(0, 2**32, (40, 24), dtype=np.uint32)
@@ -128,8 +129,8 @@ def test_sharded_hot_hash_full_budget_matches_single_device(monkeypatch):
     """A hot hash (> P_SMALL postings in one shard) forces the sharded
     program off the direct/small paths onto the full-budget sorted combine;
     results must still match the single-device searcher bit for bit."""
-    monkeypatch.setenv("AITPU_RESIDENT_MAX_BYTES", str(64 * 1024))
-    from acoustid_index_tpu.ops.search_kernel import P_SMALL
+    monkeypatch.setattr(layout, "RESIDENT_MAX_BYTES", 64 * 1024)
+    from acoustid_index.ops.search_kernel import P_SMALL
 
     rng = np.random.default_rng(47)
     n_docs = 25_000

@@ -15,11 +15,11 @@ import jax
 from oracle import OracleSegment, oracle_search
 from server_fixture import Server, post_search
 
-from acoustid_index_tpu.engine.index import Index
-from acoustid_index_tpu.engine.model import Delete, Insert, SearchOptions
-from acoustid_index_tpu.engine.searcher import Searcher
-from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier
-from acoustid_index_tpu.parallel.serving import ShardedBatchingSearcher
+from acoustid_index.engine.index import Index
+from acoustid_index.engine.model import Delete, Insert, SearchOptions
+from acoustid_index.engine.searcher import Searcher
+from acoustid_index.engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier
+from acoustid_index.parallel.serving import ShardedBatchingSearcher
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

@@ -18,11 +18,11 @@ import zlib
 import msgpack
 import requests
 
-from acoustid_index_tpu.engine import filefmt
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Insert, SegmentInfo
-from acoustid_index_tpu.engine.oplog import Oplog
-from acoustid_index_tpu.utils import native
+from acoustid_index.engine import filefmt
+from acoustid_index.engine.memseg import build_segment
+from acoustid_index.engine.model import Insert, SegmentInfo
+from acoustid_index.engine.oplog import Oplog
+from acoustid_index.utils import native
 
 
 # ---- oplog frame: [len u32 LE][crc32 u32 LE][msgpack {"i","c","v"}] ----
@@ -95,8 +95,8 @@ SNAPSHOT_HEADER = (
 def test_snapshot_header_bytes(tmp_path):
     from types import SimpleNamespace
 
-    from acoustid_index_tpu.engine.segments import Snapshot
-    from acoustid_index_tpu.multi import snapshot as snap_mod
+    from acoustid_index.engine.segments import Snapshot
+    from acoustid_index.multi import snapshot as snap_mod
 
     info = SegmentInfo(commit_id=2, merges=1, version=None)
     seg_path = tmp_path / filefmt.segment_file_name(info)
@@ -120,9 +120,9 @@ BOOTSTRAP_END = b"\x90"  # [] — the PROPER-end marker
 
 
 def _coordinator_server(corpus=None):
-    from acoustid_index_tpu.cluster.coordinator import MemoryCoordinator
-    from acoustid_index_tpu.cluster.coordinator_server import CoordinatorApp
-    from acoustid_index_tpu.server.http import HttpServer
+    from acoustid_index.cluster.coordinator import MemoryCoordinator
+    from acoustid_index.cluster.coordinator_server import CoordinatorApp
+    from acoustid_index.server.http import HttpServer
 
     coordinator = MemoryCoordinator(bootstrap_corpus=corpus)
     app = CoordinatorApp(coordinator)
